@@ -1,4 +1,4 @@
-"""bwtpu — TPU-native FM-index short-read alignment engine.
+"""bwtpu — accelerator-native FM-index short-read alignment engine.
 
 A brand-new engine with the capabilities of the reference aligner
 (cloudozer/BWT; see SURVEY.md — the reference mount was empty, so the
@@ -10,7 +10,7 @@ SURVEY.md §0.1 step 2):
   (`bwtpu.index`),
 - device-side search: exact backward search, bounded-mismatch
   (<=k substitutions) search, locate + SAM-equivalent emission, as
-  batched JAX/Pallas programs over int32 lattices in HBM
+  batched JAX programs over int32 lattices in device memory
   (`bwtpu.kernels`, `bwtpu.engine`),
 - distribution: index replication or interval sharding over a
   ('shard', 'data') device mesh with ring-rotation of read batches and

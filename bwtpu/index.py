@@ -1,11 +1,11 @@
-"""Host-side FM-index construction and the HBM lattice layout.
+"""Host-side FM-index construction and the device lattice layout.
 
 Layers L1/L2 (SURVEY.md §1, §3.1): suffix array -> BWT -> C table ->
 checkpointed Occ -> text-sampled SA, laid out for the device as int32
 lattices (SURVEY.md §7.2 "memory layout — the load-bearing decisions").
 
-Lattice layout (normative; the jnp twin and Pallas kernels both consume
-exactly this):
+Lattice layout (normative; every device kernel consumes exactly
+this):
 
   search_lattice : int32[n_blocks + 1, 32] — one 128 B record per
       128-base BWT block j. Width is free on the gather path (cost is
@@ -66,8 +66,8 @@ NEXT_BWT0 = 21  # next block's packed BWT words
 # advances backward search by s bases (s = 3 or 4) for both interval
 # bounds in a single gather (docs/DESIGN.md "multi-step Occ lattice").
 # Record layout for step s, alphabet A = 4^s, R rows per block,
-# power-of-2 width W (smallest record that fits measures fastest on
-# v5e; see docs/DESIGN.md):
+# power-of-2 width W (the smallest record that fits measured fastest;
+# see docs/DESIGN.md):
 #   words 0..A-1     fold[j][t] = Ks[t] + OccS(t, R*j): Ks[t] is the
 #                    SA interval start of s-mer t (first row whose
 #                    suffix begins with t); OccS(t, i) counts rows

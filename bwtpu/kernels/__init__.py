@@ -1,14 +1,9 @@
 """Device kernels: exact backward search, LF-walk locate, seed verify.
 
-Every kernel has two interchangeable implementations consuming the SAME
-int32 lattice layout (bwtpu.index):
-
-- a pure-jnp "twin" (XLA gather based) — the correctness reference for
-  the Pallas kernel and the portable fallback (runs anywhere JAX runs),
-- a Pallas/Mosaic kernel for TPU (SURVEY.md §7.3).
-
-Tests assert bit-identical int32 outputs between the two (SURVEY.md
-§4.2.5).
+Every stage is plain jnp/lax over the int32 lattice layout
+(bwtpu.index), compiled by XLA; the simple one-step kernels exported
+here are the bit-exact references the packed pipelines are tested
+against.
 """
 
 from bwtpu.kernels.search import backward_search  # noqa: F401

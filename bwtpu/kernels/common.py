@@ -1,8 +1,8 @@
 """Shared device-side helpers over the int32 lattice layout.
 
 The layout contract lives in bwtpu/index.py; these helpers are the only
-place device code decodes it, so the jnp twins and Pallas kernels can't
-drift from each other.
+place device code decodes it, so the search, locate and verify stages
+can't drift from each other.
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ def select_lane(arr: jnp.ndarray, idx: jnp.ndarray, width: int) -> jnp.ndarray:
     """arr[..., idx] as a one-hot masked sum over a STATIC width.
 
     Equivalent to take_along_axis(arr, idx[..., None], -1)[..., 0] but
-    guaranteed to stay elementwise (VPU select + reduce) and fuse into
+    guaranteed to stay elementwise (select + reduce) and fuse into
     the record-gather consumer. A dynamic take_along_axis on a gathered
     (B, W) record can lower to a second HBM element gather, which costs
     like a full row gather PER ELEMENT (docs/DESIGN.md) — one-hot keeps
@@ -70,7 +70,7 @@ def block_rank(
 
     bwt_words: (..., 8) int32; c, m: (...,) int32. Returns (...,) int32.
 
-    SWAR formulation (8 words of VPU work per query instead of a
+    SWAR formulation (8 words of elementwise work per query instead of a
     128-lane unpack): XOR the word against the base pattern replicated
     16x, collapse each 2-bit group to one even-position bit, mask to the
     m-base prefix, popcount.
@@ -116,7 +116,7 @@ def occ(
     """Batched Occ(c, i) = count of base c in BWT[0:i).
 
     lattice: (n_blocks+1, 16) int32; c, i: (B,) int32. One gather of a
-    64 B record per query + VPU in-block rank (SURVEY.md §3.2).
+    64 B record per query + elementwise in-block rank (SURVEY.md §3.2).
     """
     rec = jnp.take(lattice, i >> LOG2_BLOCK, axis=0)  # (B, 16)
     return occ_from_records(rec, dollar_row, c, i)

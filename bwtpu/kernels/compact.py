@@ -43,15 +43,15 @@ def compact_counts(counts: jnp.ndarray, H: int, capacity: int):
     is the prefix mask ``k < counts[l]`` over int32[Nlanes, H] (the shape
     interval_rows emits) — but skips the 2M-lane cumsum+scatter: the
     cumsum runs over Nlanes counts and the scatter writes only Nlanes
-    values (measured 29% faster at bench scale, docs/DESIGN.md).
+    values (docs/DESIGN.md "structured compaction").
 
     Slot recovery scatters ``base_l = l*H - cum_l`` at each live lane's
     first slot: sel[i] = cummax(base)[i] + i directly. base is
     nondecreasing in l (base_{l+1} - base_l = H - c_l >= 0), so one
     scatter-max + one cummax replace the earlier owner-id scatter PLUS
     the per-slot ``cum[owner]`` element gather — element gathers cost a
-    full row fetch each on this stack (docs/DESIGN.md gather table;
-    stage attribution round 3). Bit-identical sel/count/overflow.
+    full row fetch each (docs/DESIGN.md "Gather model", "Stage
+    attribution"). Bit-identical sel/count/overflow.
 
     Returns (sel, count, overflow, dropped) — dropped bool[Nlanes]
     flags lanes whose slots did not all fit the capacity, the per-lane

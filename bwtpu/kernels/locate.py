@@ -1,4 +1,4 @@
-"""Batched LF-walk locate (components C9/C10, SURVEY.md §3.3) — jnp twin.
+"""Batched LF-walk locate (components C9/C10, SURVEY.md §3.3).
 
 For each SA row, walk r <- LF(r) = C[BWT[r]] + Occ(BWT[r], r) until the
 row is SA-sampled, then pos = ssa[mark_rank(r)] + steps. Text sampling
@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from bwtpu.kernels import common
 
 
-@partial(jax.jit, static_argnames=("sa_rate", "backend"))
+@partial(jax.jit, static_argnames=("sa_rate",))
 def locate_rows(
     lattice: jnp.ndarray,  # int32[n_blocks+1, 32]
     ssa: jnp.ndarray,  # int32[n_sampled]
@@ -29,7 +29,6 @@ def locate_rows(
     rows: jnp.ndarray,  # int32[B] SA rows (flattened batch)
     valid: jnp.ndarray,  # bool[B]
     sa_rate: int,
-    backend: str = "jnp",
 ) -> jnp.ndarray:
     """Returns positions int32[B]; -1 where not valid."""
     B = rows.shape[0]
@@ -51,20 +50,13 @@ def locate_rows(
         # done lanes gather block 0: their values are dead (rank/steps
         # already latched) but the masked fixed-trip loop still issues
         # their gathers, and a RANDOM dead row costs the full
-        # cache-hostile rate (7 -> 35 ns/row by table size, DESIGN.md)
-        # while a constant hot row is cache-resident. Expected live
+        # cache-hostile rate (gathers slow down as tables leave cache,
+        # DESIGN.md) while a constant hot row is cache-resident. Expected live
         # fraction at trip t is (1 - t/s), so this halves the walk's
         # random-row traffic — the "per-trip compaction" win without a
         # per-trip compaction (round 5, human-scale locate rebuild).
         j = jnp.where(done, 0, j)
         rec = jnp.take(lattice, j, axis=0)  # (B, 16)
-        if backend == "pallas":
-            from bwtpu.kernels.pallas_step import locate_step_pallas
-
-            r2, done2, rank2, steps2 = locate_step_pallas(
-                rec, r, done, rank_out, steps_out, t, C, dollar_row
-            )
-            return r2, done2, rank2, steps2
         bit, inrank = common.mark_bit_and_rank(rec, m)
         found = (bit == 1) & ~done
         rank = rec[:, common.MARK_RANK_WORD] + inrank

@@ -1,11 +1,10 @@
 """Packed-word batch prep: SWAR bit ops instead of (B, L) code arrays.
 
-Stage decomposition on the v5e (scripts/stage_times.py, round 2)
-showed device_prep_uniform — unpacking 2-bit reads into int32[B2, L]
-code planes, reversing them for the reverse strand and re-packing —
-costing ~32 ms of a 78 ms exact batch: 40% of the pipeline on
-elementwise layout churn. But the search consumes only three tiny
-derivatives of the reads:
+A stage decomposition (scripts/stage_times.py, round 2) showed
+device_prep_uniform — unpacking 2-bit reads into int32[B2, L] code
+planes, reversing them for the reverse strand and re-packing —
+taking 40% of an exact batch on elementwise layout churn. But the
+search consumes only three tiny derivatives of the reads:
 
   1. the depth-d k-mer start key        (one int per lane)
   2. the per-trip s-mer codes           (T ~ 30 ints per lane)

@@ -1,4 +1,4 @@
-"""Exact backward search (component C8, SURVEY.md §3.2) — jnp twin.
+"""Exact backward search (component C8, SURVEY.md §3.2).
 
 Per-base FM-index interval narrowing, batched over thousands of reads:
 state (sp, ep) per read; per step two rank queries (one 64 B record
@@ -7,14 +7,11 @@ sp == ep), so no explicit dead mask is needed; ambiguous read bases
 (N) force the interval empty, per the pinned convention.
 
 v1 STATUS: test oracle. The live exact path is search2 (right-aligned)
-/ searchk (multi-step early-stop); the Pallas per-step fusion lives in
-bwtpu.kernels.pallas_step. This module survives as the simplest
-bit-exact reference the others are tested against.
+/ searchk (multi-step early-stop). This module survives as the
+simplest bit-exact reference the others are tested against.
 """
 
 from __future__ import annotations
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +20,7 @@ import numpy as np
 from bwtpu.kernels import common
 
 
-@partial(jax.jit, static_argnames=("backend",))
+@jax.jit
 def backward_search(
     lattice: jnp.ndarray,  # int32[n_blocks+1, 16]
     C: jnp.ndarray,  # int32[8]
@@ -32,7 +29,6 @@ def backward_search(
     codes: jnp.ndarray,  # int32[B, L] left-aligned base codes
     amb: jnp.ndarray,  # int32[B, L] 1 where base is ambiguous
     lens: jnp.ndarray,  # int32[B] valid read lengths
-    backend: str = "jnp",
 ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Returns per-read half-open (sp, ep), each int32[B]."""
     B, L = codes.shape

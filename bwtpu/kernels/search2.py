@@ -26,7 +26,7 @@ import numpy as np
 from bwtpu.kernels import common
 
 
-@partial(jax.jit, static_argnames=("d", "backend", "cap_scale"))
+@partial(jax.jit, static_argnames=("d", "cap_scale"))
 def backward_search_ra(
     lattice: jnp.ndarray,  # int32[n_blocks+1, 16]
     C: jnp.ndarray,  # int32[8]
@@ -37,7 +37,6 @@ def backward_search_ra(
     ra_amb: jnp.ndarray,  # int32[B, L]
     lens: jnp.ndarray,  # int32[B]; caller guarantees lens >= d or len==0
     d: int,
-    backend: str = "jnp",
     cap_scale: int = 1,
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Returns (sp, ep, fixup_overflow): per-read half-open interval
@@ -76,14 +75,6 @@ def backward_search_ra(
         c = ra_codes[:, pos]
         a = ra_amb[:, pos]
         active = pos >= (L - lens)
-        if backend == "pallas":
-            from bwtpu.kernels.pallas_step import search_step1_pallas
-
-            rec = jnp.take(lattice, sp >> 7, axis=0)
-            sp2, ep2, s2 = search_step1_pallas(
-                rec, c, a, active, sp, ep, C, dollar_row
-            )
-            return sp2, ep2, strag | (s2 == 1)
         rec = jnp.take(lattice, sp >> 7, axis=0)
         o_sp, o_ep, s2 = common.occ_pair_from_record(rec, dollar_row, c, sp, ep)
         cbase = common.select_scalar_table(C, c + 1, 8)

@@ -13,7 +13,7 @@ where t is the next s pattern bases (right-to-left) and OccS(t, i)
 counts rows r < i whose suffix is preceded by exactly the text s-mer
 t. Ks is folded into the stored checkpoints, so a step is: one record
 gather, one in-record one-hot checkpoint select, and two R-lane prefix
-counts on the VPU. The s rows with SA[r] < s store code 0 and are
+counts elementwise. The s rows with SA[r] < s store code 0 and are
 excluded from checkpoints; queries with t == 0 subtract them via the
 occk_invalid row list (same scheme as the 1-step '$' row).
 
@@ -316,8 +316,7 @@ def search_early_stop_packed(
     prep path): the k-mer start key, the per-trip s-mer codes and the
     compacted finisher's codes are extracted straight from the packed
     words (kernels/prep.py SWAR ops), so no (B, L) code plane is ever
-    materialized — measured ~32 ms/batch of pure layout churn on the
-    v5e (docs/DESIGN.md "packed prep"). Bit-identical to the uniform
+    materialized (docs/DESIGN.md "packed prep"). Bit-identical to the uniform
     variant on unpacked codes (tests/test_kernels_jnp.py).
 
     `off`/`L` select a static subfield of each row, which is how the
@@ -438,10 +437,11 @@ def search_early_stop_packed(
         trips = jnp.int32(0)
 
     unfinished = (~stopped & (rem > 0)) | strag
-    sp, ep, overflow = _fixup_stragglers_packed(
-        lattice, C, dollar_row, words, amb_bits, off, L,
-        sp0, ep0, sp, ep, unfinished, d, cap=cap,
-    )
+    with jax.named_scope("finisher"):
+        sp, ep, overflow = _fixup_stragglers_packed(
+            lattice, C, dollar_row, words, amb_bits, off, L,
+            sp0, ep0, sp, ep, unfinished, d, cap=cap,
+        )
     rem = jnp.where(unfinished, 0, rem)
     if with_stats:
         n_unf = jnp.sum(unfinished.astype(jnp.int32))

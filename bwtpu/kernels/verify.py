@@ -21,8 +21,6 @@ both generations).
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +28,7 @@ import numpy as np
 NM_INVALID = 255  # nm value reported for invalid/out-of-range candidates
 
 
-@partial(jax.jit, static_argnames=("backend",))
+@jax.jit
 def verify_candidates(
     text_packed: jnp.ndarray,  # int32[n_words (+pad)] 2-bit packed text
     text_len: jnp.ndarray,  # int32 scalar
@@ -39,7 +37,6 @@ def verify_candidates(
     codes: jnp.ndarray,  # int32[B, L] read codes (left-aligned)
     amb: jnp.ndarray,  # int32[B, L]
     lens: jnp.ndarray,  # int32[B]
-    backend: str = "jnp",
 ) -> jnp.ndarray:
     """Returns nm int32[B, Cmax]; NM_INVALID where invalid/out of range."""
     B, Cmax = cand.shape

@@ -13,7 +13,7 @@ element-wise gathers — ~1 s/batch measured on chip. v2 reformulates:
     x = (window >> bit_phase) XOR read_words
     pair = (x | x >> 1) & 0x5555...  (one bit per mismatching base)
     nm = popcount((pair | amb_bits) & len_mask)
-  — pure VPU work on (cands, R) int32.
+  — pure elementwise work on (cands, R) int32.
 
 Bit phase is the only per-candidate variable (pos % 16), handled by
 per-lane variable shifts (vector ops, not gathers).
@@ -39,12 +39,12 @@ def window_row_width(read_len: int) -> int:
 # Text rows are stride-8: row i carries words [8i, 8i + 7 + R), so a
 # candidate at word w gathers row w >> 3 and funnel-selects by w & 7
 # (3 log-step selects — pure elementwise). Stride-1 rows (round 1-3)
-# cost 9 words/row at L=100 — a shape the TPU pads AND relayouts: at
-# human scale the compiler materialized a 9.31 GB transposed COPY of
-# the (10, 15.6M, 9) stacked table (1.8x padding on top), the single
-# largest allocation of the OOM breakdown (round 4). Stride-8 cuts the
-# table 8x (row width R+7 amortizes 8 start positions) and the copy,
-# if XLA still makes one, shrinks with it.
+# cost 9 words/row at L=100 — a shape the compiler padded AND
+# relayouted: at human scale it materialized a 9.31 GB transposed COPY
+# of the (10, 15.6M, 9) stacked table, the single largest allocation of
+# the OOM breakdown (round 4). Stride-8 cuts the table 8x (row width
+# R+7 amortizes 8 start positions) and the copy, if XLA still makes
+# one, shrinks with it.
 TEXT_ROW_STRIDE = 8
 
 
@@ -105,8 +105,7 @@ def build_locv_rows(text_packed: np.ndarray, ssa_full: np.ndarray,
     window inside the row. One gather of this row then yields BOTH the
     locate result and the verify window — replacing the ssa element
     gather AND the text-row gather, each of which costs a full row
-    fetch on this stack (docs/DESIGN.md gather table; stage attribution
-    round 3 measured locate at 11.6 ms of a 48 ms exact batch).
+    fetch (docs/DESIGN.md gather model).
 
     Trades HBM for gathers: (2W+2)*4 B per SA row (64 B at L=100) —
     ~295 MB at E. coli scale, ~3 GB at chr21; engine.upload_index gates
@@ -175,7 +174,6 @@ def verify_packed(
     amb_bits: jnp.ndarray,  # int32[Cc, W]
     len_mask: jnp.ndarray,  # int32[Cc, W]
     lens: jnp.ndarray,  # int32[Cc]
-    backend: str = "jnp",
 ) -> jnp.ndarray:
     """nm int32[Cc]; NM_INVALID where invalid/out of range."""
     W = read_words.shape[1]
@@ -195,12 +193,6 @@ def verify_packed(
         raw = jnp.where((sub[:, None] & b) != 0, shifted, raw)
         b <<= 1
     rows = raw  # (Cc, R+7); consumers slice [:W] / [1:W+1]
-    if backend == "pallas":
-        from bwtpu.kernels.pallas_step import verify_nm_pallas
-
-        return verify_nm_pallas(
-            rows, read_words, amb_bits, len_mask, (pos & 15) * 2, in_range
-        )
     ob = ((pos & 15) * 2).astype(jnp.uint32)[:, None]  # bit phase
 
     lo = rows[:, :W].astype(jnp.uint32)

@@ -1,14 +1,14 @@
 """Multi-host launch scaffolding (SURVEY.md §3.5, §5.8 — config 5 scale).
 
-Each host of a v5e/v5p pod slice runs the SAME program:
+Each host of a multi-host GPU cluster runs the SAME program:
 
     python -m bwtpu.multihost --coordinator host0:8476 \
         --num-processes H --process-id h --index idx/ --reads reads_h.fq
 
-jax.distributed.initialize() brings up the process group over DCN;
-jax.devices() then spans the whole slice and the ('shard', 'data') mesh
-in bwtpu.dist lays shards within hosts so ring hops ride ICI while the
-'data' axis spans hosts (each host ingests its own read stream — the
+jax.distributed.initialize() brings up the process group over the
+network; jax.devices() then spans every host's cards and the ('shard',
+'data') mesh in bwtpu.dist lays shards within hosts so ring hops stay
+on the intra-host links while the 'data' axis spans hosts (each host ingests its own read stream — the
 reference's per-worker read fan-out, C16/C17, re-expressed as
 data-parallel ingestion).
 
@@ -53,7 +53,7 @@ def initialize(coordinator: str | None, num_processes: int, process_id: int,
                platform: str | None = None, host_devices: int = 0):
     """Bring up the process group. platform/host_devices support
     multi-process runs on CPU hosts (SURVEY.md §4.2.4: the same
-    collective program, no pod slice needed): host_devices virtual CPU
+    collective program, no accelerator needed): host_devices virtual CPU
     devices per process, collectives over the coordinator."""
     import os
 
@@ -318,7 +318,7 @@ def main(argv=None):
     p.add_argument("--max-insert", type=int, default=1000)
     p.add_argument("--platform", default=None,
                    help="force a jax platform (e.g. cpu for multi-process "
-                        "runs without a pod slice)")
+                        "runs without accelerators)")
     p.add_argument("--host-devices", type=int, default=0,
                    help="virtual CPU devices per process (cpu platform)")
     return run(p.parse_args(argv))

@@ -2,15 +2,19 @@
 
 Component C3 (SURVEY.md §2.1): the only super-linear step of index
 construction upstream. The native path is csrc/sais.cc (O(n) induced
-sorting, int64) loaded via ctypes; if the shared library is missing it
-is built on first use with `make` when a toolchain exists, else we fall
-back to the O(n log^2 n) NumPy prefix-doubling in bwtpu.golden (fine
-for bacterial genomes and tests; SA-IS matters at chr21/human scale).
+sorting, int64) loaded via ctypes. The shared library is built from
+csrc/ on first use in each process (`make`, which rebuilds only when a
+source is newer than csrc/build/libbwtpu.so) under an exclusive file
+lock, so concurrent processes never load a half-written library. With
+no toolchain and no prebuilt library we fall back to the O(n log^2 n)
+NumPy prefix-doubling in bwtpu.golden (fine for bacterial genomes and
+tests; SA-IS matters at chr21/human scale).
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import logging
 import os
 import subprocess
@@ -28,23 +32,34 @@ _lib: ctypes.CDLL | None = None
 _lib_tried = False
 
 
+def _build_native() -> None:
+    """Bring csrc/build/libbwtpu.so up to date. The flock serializes
+    builders across processes (test workers, shard-build jobs), and the
+    Makefile links to a temporary name and renames it into place, so a
+    reader never sees a partial file."""
+    os.makedirs(os.path.dirname(_SO), exist_ok=True)
+    with open(_SO + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            subprocess.run(
+                ["make", "-C", _CSRC], check=True, capture_output=True,
+                timeout=300,
+            )
+        except (OSError, subprocess.SubprocessError) as e:
+            # no toolchain / build failure: a library already in place
+            # is still used, else the NumPy fallback
+            log.warning("native library build failed (%s)", e)
+
+
 def _load_native() -> ctypes.CDLL | None:
     global _lib, _lib_tried
     with _lock:
         if _lib is not None or _lib_tried:
             return _lib
         _lib_tried = True
+        _build_native()
         if not os.path.exists(_SO):
-            try:
-                subprocess.run(
-                    ["make", "-C", _CSRC],
-                    check=True,
-                    capture_output=True,
-                    timeout=120,
-                )
-            except Exception as e:  # no toolchain / build failure -> fallback
-                log.warning("SA-IS native build unavailable (%s); using NumPy fallback", e)
-                return None
+            return None
         try:
             lib = ctypes.CDLL(_SO)
             lib.bwtpu_sais_u8.restype = ctypes.c_int

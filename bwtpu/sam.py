@@ -1,6 +1,6 @@
 """SAM-equivalent emission (layer L0, component C14 — SURVEY.md §2.1, §3.3).
 
-Shared by the golden model and the TPU engine so formatting can never
+Shared by the golden model and the device engine so formatting can never
 drift; the parity surface is the (read-id, position, strand, nm) tuples
 plus this formatter. Output follows SURVEY.md §3.3:
 QNAME FLAG(16 if rev) RNAME POS(1-based) MAPQ CIGAR=<L>M RNEXT PNEXT

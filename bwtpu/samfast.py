@@ -37,9 +37,10 @@ def _out_buf(cap: int) -> np.ndarray:
 
 def _native_fmt():
     """The shared library with bwtpu_sam_format2 configured, or None.
-    (The v2 symbol adds the truncation-tag column; a stale .so with only
-    the v1 symbol fails attribute lookup and is rebuilt — never called
-    with a mismatched signature.)"""
+    (The v2 symbol adds the truncation-tag column; sais._load_native
+    rebuilds a library older than its sources, so a library without it
+    means the build failed — never called with a mismatched
+    signature.)"""
     global _fmt_ready
     lib = sais._load_native()
     if lib is None:
@@ -48,23 +49,9 @@ def _native_fmt():
         try:
             fn = lib.bwtpu_sam_format2
         except AttributeError:
-            # stale .so predating samfmt.cc v2 — rebuild once
-            import os
-            import subprocess
-
-            try:
-                os.remove(sais._SO)
-                subprocess.run(
-                    ["make", "-C", sais._CSRC], check=True,
-                    capture_output=True, timeout=120,
-                )
-                lib = ctypes.CDLL(sais._SO)
-                with sais._lock:
-                    sais._lib = lib
-                fn = lib.bwtpu_sam_format2
-            except Exception as e:
-                log.warning("samfmt native rebuild failed (%s); Python fallback", e)
-                return None
+            log.warning("native library lacks bwtpu_sam_format2; "
+                        "Python fallback")
+            return None
         u8p = ctypes.POINTER(ctypes.c_uint8)
         i32p = ctypes.POINTER(ctypes.c_int32)
         i64p = ctypes.POINTER(ctypes.c_int64)

@@ -6,7 +6,7 @@ provided for capability completeness: given candidate windows from
 seed-and-extend, compute a local alignment score tolerant of small
 indels that pure Hamming verification would reject.
 
-TPU-native formulation: the DP runs as a lax.fori over read positions
+Device formulation: the DP runs as a lax.fori over read positions
 with the (2*band+1)-wide anti-band kept in registers, vectorized over
 the candidate batch (thousands of lanes per step); the within-row gap
 dependency is an unrolled prefix-max over the small band width. All

@@ -364,7 +364,7 @@ def cmd_align(args):
                     cursor_path, mode,
                 )
                 _print_summary(engine, total, t_start)
-                return
+                return engine
             if res is None:
                 # mixed-length FASTQ: length-bucketed columnar path
                 from bwtpu.readblock import read_fastq_stream_ragged
@@ -378,7 +378,7 @@ def cmd_align(args):
                         cursor_path, mode,
                     )
                     _print_summary(engine, total, t_start)
-                    return
+                    return engine
         else:
             res2 = read_fastq_stream(args.paired, bs, start=start_batch)
             if (
@@ -391,7 +391,7 @@ def cmd_align(args):
                     start_batch, cursor_path, mode,
                 )
                 _print_summary(engine, total, t_start)
-                return
+                return engine
 
     reads = read_reads(args.reads)
     out = sys.stdout if args.out in (None, "-") else open(args.out, mode)
@@ -471,6 +471,7 @@ def cmd_align(args):
             jax.profiler.stop_trace()
 
     _print_summary(engine, total, t_start)
+    return engine
 
 
 def _print_summary(engine, total, t_start):
@@ -522,6 +523,7 @@ def cmd_simulate(args):
     reads, truth = simulate_reads(
         genome, args.n_reads, read_len=args.read_len,
         max_mismatches=args.mismatches, n_frac=args.n_frac, seed=args.seed + 1,
+        error_rate=args.error_rate,
     )
     write_fastq(os.path.join(args.out, "reads.fq"), reads)
     with open(os.path.join(args.out, "truth.json"), "w") as f:
@@ -548,7 +550,7 @@ def cmd_scaling(args):
     efficiency scaling out). Runs the ring DistEngine over 1..max_data
     data-parallel lanes on the available devices and reports efficiency
     vs the single-lane rate. On a CPU host this exercises the code path
-    functionally; meaningful numbers need a real pod slice."""
+    functionally; meaningful numbers need real multi-GPU hosts."""
     import jax
     import numpy as np
 
@@ -586,9 +588,10 @@ def cmd_scaling(args):
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s %(message)s")
-    from bwtpu.hosttune import tune_malloc
+    from bwtpu.hosttune import setup_compile_cache, tune_malloc
 
     tune_malloc()  # page-fault wall: docs/DESIGN.md, bwtpu/hosttune.py
+    setup_compile_cache()
     p = argparse.ArgumentParser(prog="bwtpu", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
 
@@ -645,6 +648,10 @@ def main(argv=None):
     s.add_argument("--read-len", type=int, default=100)
     s.add_argument("--mismatches", type=int, default=2)
     s.add_argument("--n-frac", type=float, default=0.0)
+    s.add_argument("--error-rate", type=float, default=None,
+                   help="per-base substitution rate (Binomial mismatch "
+                        "count, capped at --mismatches); default: "
+                        "uniform 0..--mismatches")
     s.add_argument("--pairs", type=int, default=0)
     s.add_argument("--seed", type=int, default=0)
     s.set_defaults(fn=cmd_simulate)
@@ -661,7 +668,7 @@ def main(argv=None):
     sc.set_defaults(fn=cmd_scaling)
 
     args = p.parse_args(argv)
-    args.fn(args)
+    return args.fn(args)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,9 @@
 """A/B: exact packed compact pipeline rate vs batch size and k-mer depth.
 
-The bench's 262 K-read batch was sized when per-dispatch overhead was
-~17 ms (DESIGN.md measurement pitfalls #3); with the pipeline now at
-~42 ms/batch the fixed overhead is a ~29% tax, so doubling the batch
-is worth an A/B. Same measurement discipline as bench.py: distinct
-inputs per dispatch, best-of-2, materialize a slice of each output.
+A larger batch amortizes the fixed per-dispatch cost until its
+working set evicts the gather tables (DESIGN.md "Batch size"). Same
+measurement discipline as bench.py: distinct inputs per dispatch,
+best-of-2, jax.block_until_ready on every output.
 
 Run: python scripts/ab_batch.py [--configs 262144:11 524288:11 ...]
 """
@@ -62,22 +61,20 @@ def main():
                 inexact_pipeline_packed, L=L, k=2, d=d,
                 max_loc=cfg.max_cand, sa_rate=cfg.sa_rate,
                 loc_factor=args.loc_factor or cfg.loc_factor, min_trips=1,
-                backend="jnp", compact_output=True))
+                compact_output=True))
             probe = 1
         else:
             fx = jax.jit(functools.partial(
                 exact_pipeline_packed, L=L, d=d, max_hits=cfg.max_hits,
                 sa_rate=cfg.sa_rate, loc_factor=0.75, min_trips=1,
-                backend="jnp", compact_output=True))
+                compact_output=True))
             probe = 0
         np.asarray(fx(shard0, *encs[0])[probe])  # compile
         best = 0.0
         over = 0
         for _ in range(2):
             t0 = time.time()
-            outs = [fx(shard0, *e) for e in encs]
-            for o in outs:
-                np.asarray(o[probe][:64])
+            outs = jax.block_until_ready([fx(shard0, *e) for e in encs])
             best = max(best, B * args.nbatches / (time.time() - t0))
             over = max(over, sum(
                 int(np.asarray(o[5])) + int((np.asarray(o[4]) > 0).sum())

@@ -1,7 +1,7 @@
 """Host-side attribution of the FASTQ -> SAM production loop.
 
-BENCH r3: device exact = 4.33 M reads/s but e2e = 0.235 M — the gap
-moved from device to host (VERDICT r2 item 1 second half). This runs
+The FASTQ -> SAM loop ran far below the device rate, so the gap sits
+on the host (VERDICT r2 item 1 second half). This runs
 the exact e2e loop bench.py runs (columnar parse -> packed vmapped
 dispatch -> one-round-trip hits fetch -> vectorized primary -> C SAM
 formatter -> file) with a wall clock around every stage.

@@ -1,13 +1,11 @@
 """In-jit amortized stage attribution for the PACKED compact pipeline.
 
 The round-2 prefix method (scripts/stage_times.py) timed each stage
-prefix as its own dispatch; DESIGN.md (040ddde) flags that as
-noise-dominated on the relay (fixed ~17 ms/dispatch + sporadic stalls
-swamp small stage deltas). This script uses the method that note
-trusts instead: each stage PREFIX runs `reps` times inside ONE jit via
-lax.fori_loop (inputs perturbed per trip by a dynamic row roll so XLA
-cannot CSE trips, and dispatches carry distinct seeds so the relay
-cannot replay a cached answer — DESIGN.md measurement pitfalls 1/6).
+prefix as its own dispatch, so fixed per-dispatch costs swamped small
+stage deltas. Here each stage PREFIX runs `reps` times inside ONE jit
+via lax.fori_loop (inputs perturbed per trip by a dynamic row roll so
+XLA cannot CSE trips, and dispatches carry distinct seeds so no cache
+replays an answer — DESIGN.md "Stage attribution").
 Stage cost = successive difference / reps; the roll's own cost cancels
 in the difference (every prefix pays it once per trip).
 
@@ -46,8 +44,7 @@ def main():
                          "instead of the fused locv row gather")
     ap.add_argument("--kmer-d", type=int, default=None,
                     help="k-mer start depth (table size 4^d * 8 B: d=11 "
-                         "-> 33 MB at ~17 ns/row, d=10 -> 8.4 MB "
-                         "cache-resident ~7 ns/row; with min_trips >= 1 "
+                         "-> 33 MB, d=10 -> 8.4 MB; with min_trips >= 1 "
                          "the extra trip equalizes candidate quality)")
     args = ap.parse_args()
 

@@ -1,17 +1,16 @@
 """Sweep the k-mer START-TABLE depth for the exact and k2 pipelines.
 
 Motivation (round 5): the depth-11 start table is 4^11 x 2 x 4 B =
-33 MB — gathered once per lane per search at the mid-tier ~17 ns/row
-rate (DESIGN.md "gather cost vs TABLE SIZE"), while a depth-9/10 table
-(0.5/8 MB) is cache-resident (~7 ns/row). A shallower start leaves
-wider intervals (E[width] = n/4^d), which costs extra multi-step trips
-at ~7 ns/row from the 9 MB lattice — so the trade is one expensive
-gather vs a few cheap ones. This sweep measures it on the real chip
-with bench.py's discipline (distinct batches, best-of-2, overflow
-fetched with outputs, lossy configs fail loudly).
+33 MB — gathered once per lane per search from outside the smaller
+caches (DESIGN.md "gather cost vs table size"), while a depth-9/10
+table (0.5/8 MB) stays cache-resident. A shallower start leaves wider
+intervals (E[width] = n/4^d), which costs extra multi-step trips from
+the 9 MB lattice — so the trade is one expensive gather vs a few cheap
+ones. This sweep measures it on the device with bench.py's discipline
+(distinct batches, best-of-2, overflow fetched with outputs, lossy
+configs fail loudly).
 
-One index is built per depth (the ladder only materializes {4, 8, d});
-index build is ~3 s at E. coli scale, upload ~30 s over the relay.
+One index is built per depth (the ladder only materializes {4, 8, d}).
 
 Run: python scripts/sweep_depth.py [--quick]
 """

@@ -1,11 +1,10 @@
 """Sweep the locate/candidate stage of the exact packed pipeline.
 
-Round-3 stage attribution pinned locate as the largest exact stage
-(18.5 ms of 41.6 at 262 K reads): the fused locate+verify row comes
-from a ~295 MB table gathered at ~35 ns/row, while gathers from the
-cache-resident 4.6-9 MB tables run ~7 ns/row (docs/DESIGN.md "gather
-cost vs TABLE SIZE"). This sweep measures the alternatives that
-table-size curve implies (VERDICT r3 next-round item 1):
+Round-3 stage attribution pinned locate as the largest exact stage:
+the fused locate+verify row comes from a ~295 MB table, while the
+other gathers hit cache-resident 4.6-9 MB tables (docs/DESIGN.md
+"gather cost vs table size"). This sweep measures the alternatives
+that table-size curve implies (VERDICT r3 next-round item 1):
 
   - locv ON  (sa_rate=1): one gather from the big fused table
   - locv OFF (sa_rate=1): ssa element take (18 MB) + text-row take (16 MB)
@@ -15,7 +14,7 @@ table-size curve implies (VERDICT r3 next-round item 1):
   x batch size
 
 Same measurement discipline as bench.py: distinct inputs per dispatch,
-best-of-2, materialize a slice of every output; overflow fetched with
+best-of-2, block on every output; overflow fetched with
 the outputs and any lossy config fails the sweep loudly.
 
 Run: python scripts/sweep_locate.py [--quick]
@@ -105,15 +104,13 @@ def main():
         fx = jax.jit(functools.partial(
             exact_pipeline_packed, L=L, d=d, max_hits=4,
             sa_rate=sa_rate, loc_factor=loc_factor, min_trips=min_trips,
-            backend="jnp", compact_output=True))
+            compact_output=True))
         np.asarray(fx(shard0, *encs[0])[0])  # compile + warm
         best, over, occ = 0.0, 0, 0.0
         cap = compact_cap(2 * B, loc_factor)
         for _ in range(2):
             t0 = time.time()
-            outs = [fx(shard0, *e) for e in encs]
-            for o in outs:
-                np.asarray(o[0][:64])
+            outs = jax.block_until_ready([fx(shard0, *e) for e in encs])
             best = max(best, B * args.nbatches / (time.time() - t0))
             over = max(over, sum(
                 int(np.asarray(o[5])) + int((np.asarray(o[4]) > 0).sum())

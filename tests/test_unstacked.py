@@ -1,13 +1,13 @@
 """Unstacked (list-mode) multi-shard Engine tests.
 
 ``vmap_shards=False`` is the human-scale dispatch mode: the stacked
-vmapped program relayout-copies the big tables and OOMs HBM at 10 x
-250 Mbp shards (Engine docstring; docs/DESIGN.md "human-scale
-on-chip"), so production human-scale runs dispatch per-shard programs
-against axis-free shard trees. Round 5 added the fused-list program on
-top — ALL per-shard pipelines traced into ONE jitted function (tuple of
-shard trees as arguments), so an S-shard block pays one dispatch + one
-fetch instead of S relay round trips.
+vmapped program relayout-copies the big tables and runs out of device
+memory at 10 x 250 Mbp shards (Engine docstring; docs/DESIGN.md
+"human-scale index"), so production human-scale runs dispatch
+per-shard programs against axis-free shard trees. Round 5 added the
+fused-list program on top — ALL per-shard pipelines traced into ONE
+jitted function (tuple of shard trees as arguments), so an S-shard
+block pays one dispatch + one fetch instead of S round trips.
 
 Neither path had suite coverage before (scale_human_chip.py was the
 only caller). Golden parity here pins both, k in {0, 2}, through
